@@ -1,16 +1,16 @@
-"""adhoc_queries_pointclouds_tpu — TPU-native ad-hoc point-cloud query engine.
+"""adhoc_queries_pointclouds_tpu — an ad-hoc point-cloud query engine in JAX.
 
-A from-scratch JAX/XLA/Pallas redesign with the capabilities of the reference
+A from-scratch JAX/XLA redesign with the capabilities of the reference
 Rust engine `igd-geo/adhoc-queries-pointclouds` (the artifact for "Executing
 ad-hoc queries on large geospatial data sets without acceleration structures"):
 brute-force columnar scans over unindexed LAS / LAZ / LAST / LAZER point
 clouds, with bounding-box, classification and max-density queries, count or
 collect-and-write-back outputs, and data-parallel execution — here over a
-`jax.sharding.Mesh` of TPU chips instead of a rayon thread pool.
+`jax.sharding.Mesh` of GPUs instead of a rayon thread pool.
 
-Layer map (TPU-first, not a port):
+Layer map (device-first, not a port):
 
-    host (TPU-VM)                          device (TPU)
+    host                                   device (GPU)
     ---------------------------------      --------------------------------
     formats/   LAS/LAST/LAZER/LAZ codecs   ops/       fused predicate scans,
                -> int32 SoA point blocks              compaction, grid-sample

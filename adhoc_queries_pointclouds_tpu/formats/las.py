@@ -5,7 +5,7 @@ header codec, point-record decode for formats 0-10, and LAS write-back.
 Unlike the reference's per-point cursor loops (query/src/search/las.rs:101-146)
 we mmap the point-record block and de-interleave whole columns with numpy
 strided views — one vectorized pass per attribute, which is the natural host
-feeder for the TPU's SoA block layout.
+feeder for the device's SoA block layout.
 
 LAS point record field offsets (LAS specification, formats 0-10):
   all:    x:i32@0  y:i32@4  z:i32@8  intensity:u16@12

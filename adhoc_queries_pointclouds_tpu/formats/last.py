@@ -1,4 +1,4 @@
-"""LAST ("LAS-Transposed") codec: columnar LAS, the TPU-friendliest format.
+"""LAST ("LAS-Transposed") codec: columnar LAS, the device-friendliest format.
 
 Container layout (reverse-engineered from readers/src/last_reader.rs:73-154):
 a standard LAS header, then the point data transposed *by record field* — all

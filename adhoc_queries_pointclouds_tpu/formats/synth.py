@@ -258,57 +258,66 @@ def write_dataset(
     seed: int = 0,
     point_format: int = 2,
     clustered: bool = False,
+    workers: int = 1,
     **cloud_kwargs,
 ) -> dict[str, list[Path]]:
     """Generate a multi-file dataset laid out like the paper's experiment data:
     root/<fmt>/file_<i>.<fmt> (reference README.md:31-47). Each file covers a
     different sub-slab of the world extent so header prefilters have bite.
     clustered=True uses the spatially-coherent generator (Morton-ordered
-    Gaussian clusters + monotone gps — see make_cloud_clustered).
+    Gaussian clusters + monotone gps — see make_cloud_clustered); its files
+    continue one flight line from time_start. workers > 1 writes the files
+    in that many spawned processes; the files are the same either way.
     """
     root = Path(root)
-    out: dict[str, list[Path]] = {f: [] for f in formats}
+    for fmt in formats:
+        if fmt not in _WRITERS:
+            raise ValueError(f"unsupported synth format {fmt}")
+        (root / fmt).mkdir(parents=True, exist_ok=True)
     base_offset = cloud_kwargs.pop("offset", (100000.0, 200000.0, 0.0))
     extent = cloud_kwargs.pop("extent", (1000.0, 1000.0, 100.0))
+    time_start = cloud_kwargs.pop("time_start", 0.0)
+    specs = []
     for i in range(n_files):
-        file_offset = (
-            base_offset[0] + i * extent[0],
-            base_offset[1],
-            base_offset[2],
-        )
-        make = make_cloud_clustered if clustered else make_cloud
         extra = dict(cloud_kwargs)
         if clustered:
             from .las import has_gps_time
 
             if has_gps_time(point_format):
-                # files continue one global flight line
                 rate = extra.get("time_rate", 200_000.0)
-                extra.setdefault("time_start", i * points_per_file / rate)
-        cloud = make(
-            points_per_file,
-            seed=seed + i,
-            point_format=point_format,
-            offset=file_offset,
-            extent=extent,
-            **extra,
-        )
-        for fmt in formats:
-            d = root / fmt
-            d.mkdir(parents=True, exist_ok=True)
-            p = d / f"file_{i}.{fmt}"
-            if fmt == "las":
-                write_cloud_las(cloud, p)
-            elif fmt == "last":
-                write_cloud_last(cloud, p)
-            elif fmt == "lazer":
-                write_cloud_lazer(cloud, p)
-            elif fmt == "laz":
-                write_cloud_laz(cloud, p)
-            else:
-                raise ValueError(f"unsupported synth format {fmt}")
-            out[fmt].append(p)
-    return out
+                extra["time_start"] = time_start + i * points_per_file / rate
+        specs.append((root, i, tuple(formats), clustered, dict(
+            n=points_per_file, seed=seed + i, point_format=point_format,
+            offset=(base_offset[0] + i * extent[0], base_offset[1], base_offset[2]),
+            extent=extent, **extra)))
+    if workers > 1 and n_files > 1:
+        import multiprocessing
+        from concurrent.futures import ProcessPoolExecutor
+
+        ctx = multiprocessing.get_context("spawn")
+        with ProcessPoolExecutor(min(workers, n_files), mp_context=ctx) as pool:
+            paths = list(pool.map(_write_file, *zip(*specs)))
+    else:
+        paths = [_write_file(*s) for s in specs]
+    return {fmt: [p[fmt] for p in paths] for fmt in formats}
+
+
+_WRITERS = {
+    "las": write_cloud_las,
+    "last": write_cloud_last,
+    "lazer": write_cloud_lazer,
+    "laz": write_cloud_laz,
+}
+
+
+def _write_file(root: Path, i: int, formats, clustered: bool, kw: dict) -> dict[str, Path]:
+    """File i of a write_dataset dataset, in every format."""
+    cloud = (make_cloud_clustered if clustered else make_cloud)(**kw)
+    paths = {}
+    for fmt in formats:
+        paths[fmt] = root / fmt / f"file_{i}.{fmt}"
+        _WRITERS[fmt](cloud, paths[fmt])
+    return paths
 
 
 def formats_available(*formats: str) -> tuple[str, ...]:

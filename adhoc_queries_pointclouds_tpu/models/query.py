@@ -39,9 +39,9 @@ class TimeRangeQuery:
 
     The reference only has dead stubs for this
     (query/src/search/las.rs:297-367, `_search_las_file_by_time_range*`);
-    here it is a working query type. GPS times are f64, which TPUs lack, so
-    this predicate is evaluated on the host (vectorized numpy) — exact, and
-    still fed by the parallel decode pipeline.
+    here it is a working query type. GPS times are f64; the host encodes
+    them as order-preserving (hi, lo) int32 pairs and the device compares
+    those (ops/predicate.py) — exact f64 semantics in int32 compares.
     """
 
     start: float

@@ -1,7 +1,7 @@
 """ctypes bindings for the native host codecs (aqpc_native.cpp).
 
-Builds the shared library on first import with g++ (no pybind11 in this
-image — plain C ABI + ctypes, which also releases the GIL during calls so a
+Builds the shared library on first use with g++ from the committed sources
+(plain C ABI + ctypes, which also releases the GIL during calls so a
 Python thread pool gets real multicore decode).
 """
 
@@ -10,6 +10,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import platform
 import subprocess
 import threading
 from pathlib import Path
@@ -18,39 +19,65 @@ import numpy as np
 
 _HERE = Path(__file__).parent
 _SOURCES = [_HERE / "aqpc_native.cpp", _HERE / "laszip.cpp"]
+_FLAGS = (
+    "-O3",
+    "-march=native",
+    # g++ contracts a*b+c into fma even in ISO mode; the density exact
+    # -resolution functions must round f64 ops exactly like numpy's (and
+    # the reference Rust's) separate mul/add or winner ties change
+    "-ffp-contract=off",
+    "-shared",
+    "-fPIC",
+    "-std=c++17",
+    "-pthread",
+)
 _LOCK = threading.Lock()
 _LIB = None
 
 
-def _build_if_needed() -> Path:
+def host_cpu() -> str:
+    """What -march=native compiles for: the first CPU's model and features."""
+    try:
+        text = Path("/proc/cpuinfo").read_text()
+    except OSError:
+        return f"{platform.machine()} {platform.processor()}"
+    keys = ("vendor_id", "model name", "flags", "CPU implementer", "CPU part", "Features")
+    first = text.split("\n\n", 1)[0]
+    return "\n".join(
+        line for line in first.splitlines() if line.split(":")[0].strip() in keys
+    )
+
+
+def library_key(sources, flags, cpu: str) -> str:
+    """Cache key of a build: the sources, the compiler flags and the CPU that
+    -march=native targets, so a tree copied to another host rebuilds."""
     h = hashlib.sha256()
-    for src in _SOURCES:
-        h.update(src.read_bytes())
-    so_path = _HERE / f"_aqpc_native_{h.hexdigest()[:16]}.so"
+    for src in sources:
+        h.update(Path(src).read_bytes())
+    h.update("\0".join(flags).encode())
+    h.update(cpu.encode())
+    return h.hexdigest()[:16]
+
+
+def build_if_needed(out_dir: Path = _HERE, sources=_SOURCES, flags=_FLAGS) -> Path:
+    """The library for these sources, flags and this host's CPU in out_dir,
+    compiled if it is not there yet. Concurrent callers may all compile:
+    each builds beside the target and renames into place, so none loads a
+    half-written library, and stale builds of other keys are removed only
+    after the rename, never the target itself."""
+    so_path = Path(out_dir) / f"_aqpc_native_{library_key(sources, flags, host_cpu())}.so"
     if so_path.exists():
         return so_path
-    # clean stale builds
-    for old in _HERE.glob("_aqpc_native_*.so"):
-        try:
-            old.unlink()
-        except OSError:
-            pass
-    cmd = [
-        "g++",
-        "-O3",
-        "-march=native",
-        # g++ contracts a*b+c into fma even in ISO mode; the density exact
-        # -resolution functions must round f64 ops exactly like numpy's (and
-        # the reference Rust's) separate mul/add or winner ties change
-        "-ffp-contract=off",
-        "-shared",
-        "-fPIC",
-        "-std=c++17",
-        "-pthread",
-        "-o",
-        str(so_path),
-    ] + [str(s) for s in _SOURCES]
+    tmp = so_path.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
+    cmd = ["g++", *flags, "-o", str(tmp)] + [str(s) for s in sources]
     subprocess.run(cmd, check=True, capture_output=True)
+    os.replace(tmp, so_path)
+    for old in Path(out_dir).glob("_aqpc_native_*.so"):
+        if old != so_path:
+            try:
+                old.unlink()
+            except OSError:
+                pass
     return so_path
 
 
@@ -65,7 +92,7 @@ def load() -> ctypes.CDLL | None:
         if os.environ.get("AQPC_DISABLE_NATIVE"):
             return None
         try:
-            lib = ctypes.CDLL(str(_build_if_needed()))
+            lib = ctypes.CDLL(str(build_if_needed()))
         except (OSError, subprocess.CalledProcessError):
             return None
         lib.aqpc_xxh32.restype = ctypes.c_uint32

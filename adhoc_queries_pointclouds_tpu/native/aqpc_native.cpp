@@ -1,10 +1,10 @@
-// aqpc_native — host-side native codecs for the TPU point-cloud query engine.
+// aqpc_native — host-side native codecs for the point-cloud query engine.
 //
 // Implements the LZ4 block and frame formats from the public format specs
 // (https://github.com/lz4/lz4/blob/dev/doc): the LAZER container stores one
 // LZ4 *frame* per attribute per block (reference readers/src/lazer_reader.rs:
 // 143-151 uses the Rust `lz4` crate's frame Decoder). Decode is the hot path
-// that feeds the TPU pipeline; a real compressor is included so fixtures and
+// that feeds the device pipeline; a real compressor is included so fixtures and
 // the LAS->LAZER converter produce genuinely compressed files.
 //
 // Exposed via a plain C ABI for ctypes (no pybind11 in this image).
@@ -36,7 +36,7 @@ static inline uint32_t rotl32(uint32_t x, int r) { return (x << r) | (x >> (32 -
 static inline uint32_t read_u32le(const uint8_t* p) {
   uint32_t v;
   std::memcpy(&v, p, 4);
-  return v;  // little-endian hosts only (x86/ARM TPU-VMs)
+  return v;  // little-endian hosts only (x86/ARM)
 }
 
 static inline uint16_t read_u16le(const uint8_t* p) {

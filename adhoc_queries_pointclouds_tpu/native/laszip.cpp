@@ -1,4 +1,4 @@
-// laszip.cpp — LASzip v2 codec (LAZ read/write) for the TPU query engine.
+// laszip.cpp — LASzip v2 codec (LAZ read/write) for the point-cloud query engine.
 //
 // Implemented from the published LASzip format description (Isenburg,
 // "LASzip: lossless compression of LiDAR data", PE&RS 2013) and the open

@@ -1,4 +1,4 @@
-"""Device-side compute ops (JAX/XLA + Pallas TPU kernels).
+"""Device-side compute ops (JAX/XLA).
 
 All hot ops work on fixed-shape int32/uint8 SoA blocks with an explicit
 valid-count scalar — static shapes keep XLA from recompiling as blocks

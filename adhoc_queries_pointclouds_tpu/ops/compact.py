@@ -1,7 +1,7 @@
 """Masked index compaction: variable-size outputs on fixed-shape hardware.
 
 The reference's collect path just pushes hits into a Vec
-(query/src/collect_points.rs:29-31). On TPU, match counts are unpredictable
+(query/src/collect_points.rs:29-31). On a device, match counts are unpredictable
 (the paper's queries range 35 M ... 2.6 B hits) while shapes must be static,
 so collection is two-pass (SURVEY §7 "hard parts"):
 
@@ -10,7 +10,7 @@ so collection is two-pass (SURVEY §7 "hard parts"):
           bucket-capped buffer -> at most log2(block_size) distinct compiled
           shapes, reused forever after warm-up.
 
-`jnp.nonzero(..., size=cap)` lowers to cumsum+scatter on TPU, one fused pass.
+`jnp.nonzero(..., size=cap)` lowers to a cumsum + scatter.
 """
 
 from __future__ import annotations

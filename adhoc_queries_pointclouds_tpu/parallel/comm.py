@@ -20,7 +20,7 @@ The contract a comm implements:
   agree_widths(w)     per-step packed-transport width vector (max across
                       participants so compiled programs match)
   agree_cap(c)        per-step collect index-buffer cap (same reason)
-  inflight()          device steps in flight (None = engine probes)
+  inflight()          device steps in flight (None = engine default)
   put(mesh, arrays)   lift per-process step operands to mesh-wide arrays
   fetch_rows(dev)     this process's rows of a P("d", ...) step output
   finish_total(d, h)  final count from device-step total + host-side total
@@ -67,7 +67,7 @@ class LocalStepComm:
         return cap
 
     def inflight(self) -> int | None:
-        return None  # engine probes dispatch latency
+        return None  # engine default (MAX_INFLIGHT_STEPS)
 
     def put(self, mesh, arrays: tuple) -> tuple:
         return arrays  # shard_map shards host arrays directly

@@ -1,12 +1,12 @@
-"""Multi-host distributed queries over DCN + ICI.
+"""Multi-process distributed queries under `jax.distributed`.
 
 The reference is strictly single-process (rayon threads, SURVEY §2.5); its
 "all-reduce" is a fold over per-file collectors on the main thread
-(main.rs:164-180). The TPU-native lift: every host runs the same SPMD
+(main.rs:164-180). The device lift: every process runs the same SPMD
 program under `jax.distributed`, reads its own shard of the file manifest
-(the rayon-per-file model raised to hosts), feeds its local devices, and the
-per-step `psum` spans the GLOBAL mesh — partial counts ride ICI within a
-slice and DCN across hosts, inserted by XLA, no hand-rolled NCCL/MPI.
+(the rayon-per-file model raised to processes), feeds its local devices,
+and the per-step `psum` spans the GLOBAL mesh — the collectives are
+inserted by XLA (NCCL on GPUs), no hand-rolled MPI.
 
 Since round 4 the multi-host path IS the local engine: `DistStepComm`
 (implementing parallel/comm.py's strategy surface) is handed to
@@ -18,7 +18,7 @@ and collect caps are static shapes — every host must compile the identical
 program), process-local -> global array assembly, per-host shard readback,
 and the final count all-reduce. Hit payloads never cross hosts.
 
-Caps, steps, widths and block sizes are agreed via tiny DCN all-reduces, so
+Caps, steps, widths and block sizes are agreed via tiny cross-process all-reduces, so
 hosts never diverge — no divergence, no deadlock. Single-host processes
 degenerate gracefully (process_count == 1 makes every agreement an
 identity), which is how this is exercised in CI; tools/dist2.py proves the
@@ -42,11 +42,12 @@ from ..models.query import QueryPlan
 
 def initialize(coordinator_address: str | None = None, num_processes: int | None = None,
                process_id: int | None = None) -> None:
-    """Bring up jax.distributed (no-op if already initialized or single host)."""
-    if jax.process_count() > 1:
-        return
-    if coordinator_address is None:
-        return  # single-process mode
+    """Bring up jax.distributed (no-op if already initialized or single host).
+
+    Must run before anything initializes a JAX backend, so it asks
+    jax.distributed itself rather than jax.process_count()."""
+    if coordinator_address is None or jax.distributed.is_initialized():
+        return  # single-process mode, or already up
     jax.distributed.initialize(
         coordinator_address=coordinator_address,
         num_processes=num_processes,
@@ -66,7 +67,7 @@ def shard_manifest(files: list[Path]) -> list[Path]:
 
 
 def _allreduce_max(value: int, mesh: Mesh) -> int:
-    """Agree on max(value) across processes (tiny sharded reduction on DCN)."""
+    """Agree on max(value) across processes (tiny sharded cross-process reduction)."""
     if jax.process_count() == 1:
         return value
     d_local = len(jax.local_devices())
@@ -108,7 +109,7 @@ def _allreduce_sum(value: int, mesh: Mesh) -> int:
 class DistStepComm:
     """Multi-host step-communication strategy for engine.run_query.
 
-    See parallel/comm.py for the contract. Every agreement is a tiny DCN
+    See parallel/comm.py for the contract. Every agreement is a tiny cross-process
     all-reduce; step operands are lifted to global arrays from process-local
     shards (jax.make_array_from_process_local_data), and step outputs are
     read back shard-wise so a host only ever touches its own rows."""
@@ -306,10 +307,7 @@ def _allgather_i32_rows(
     with the slab budget, not devices x max-per-host."""
     if jax.process_count() == 1:
         return rows
-    try:
-        from jax import shard_map
-    except ImportError:
-        from jax.experimental.shard_map import shard_map
+    from jax import shard_map
 
     W = rows.shape[1]
     d_local = len(jax.local_devices())
@@ -325,6 +323,8 @@ def _allgather_i32_rows(
         shard_map(
             lambda x: jax.lax.all_gather(x, "d", tiled=True),
             mesh=mesh, in_specs=P("d", None), out_specs=P(),
+            # all_gather's result is the same on every device, but JAX
+            # types it as varying over "d", so out_specs=P() fails the check
             check_vma=False,
         )
     )

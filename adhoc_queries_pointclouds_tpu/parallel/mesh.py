@@ -1,11 +1,11 @@
-"""Device-mesh data parallelism: the TPU-native replacement for rayon.
+"""Device-mesh data parallelism: the device replacement for rayon.
 
 The reference fans one rayon task out per *file* and folds per-file
 collectors on the main thread (query/src/main.rs:146-183). Here the unit of
 parallelism is a fixed-shape point *block*: every engine step feeds D blocks
-(one per chip) through `shard_map` over a 1-D mesh; each chip runs the fused
-Pallas predicate scan on its block against that block's own per-file integer
-bounds, and the partial counts meet in a `psum` over ICI. Blocks from
+(one per device) through `shard_map` over a 1-D mesh; each device runs the
+fused predicate scan on its block against that block's own per-file integer
+bounds, and the partial counts meet in a `psum`. Blocks from
 different files can ride the same step — bounds/n_valid are per-block
 operands, not compile-time constants — so ragged file sets still fill the
 mesh.
@@ -24,10 +24,7 @@ import jax
 import jax.numpy as jnp
 from jax.sharding import Mesh, PartitionSpec as P
 
-try:
-    from jax import shard_map
-except ImportError:  # older jax
-    from jax.experimental.shard_map import shard_map
+from jax import shard_map
 
 from ..ops import predicate
 
@@ -46,21 +43,11 @@ def make_mesh(n_devices: int | None = None) -> Mesh:
     return Mesh(np.asarray(devices), axis_names=("d",))
 
 
-def _block_impl(x) -> str:
-    """Pick the autotuned impl on TPU when the block is tile-aligned."""
-    if jax.default_backend() == "tpu" and x.shape[-1] % predicate.MIN_BLOCK_MULTIPLE == 0:
-        return predicate.autotune_impl()
-    return "jnp"
-
-
 @functools.lru_cache(maxsize=8)
-def _bbox_count_fn(mesh: Mesh, impl: str):
+def _bbox_count_fn(mesh: Mesh):
     def per_device(x, y, z, lo, hi, nv):
         # per-device shards: (K, B) blocks, (K, 3) bounds, (K,) valid counts
-        if impl == "pallas":
-            counts = predicate.bbox_count_pallas_multi(x, y, z, lo, hi, nv)
-        else:
-            counts = predicate.bbox_count_jnp_multi(x, y, z, lo, hi, nv)
+        counts = predicate.bbox_count_jnp_multi(x, y, z, lo, hi, nv)
         return jax.lax.psum(jnp.sum(counts, dtype=jnp.int32), "d")
 
     fn = shard_map(
@@ -68,18 +55,14 @@ def _bbox_count_fn(mesh: Mesh, impl: str):
         mesh=mesh,
         in_specs=(P("d", None), P("d", None), P("d", None), P("d", None), P("d", None), P("d")),
         out_specs=P(),
-        check_vma=False,  # pallas_call out_shapes carry no vma annotation
     )
     return jax.jit(fn)
 
 
 @functools.lru_cache(maxsize=8)
-def _class_count_fn(mesh: Mesh, impl: str):
+def _class_count_fn(mesh: Mesh):
     def per_device(cls, target, nv):
-        if impl == "pallas":
-            counts = predicate.class_count_pallas_multi(cls, target, nv)
-        else:
-            counts = predicate.class_count_jnp_multi(cls, target, nv)
+        counts = predicate.class_count_jnp_multi(cls, target, nv)
         return jax.lax.psum(jnp.sum(counts, dtype=jnp.int32), "d")
 
     fn = shard_map(
@@ -87,7 +70,6 @@ def _class_count_fn(mesh: Mesh, impl: str):
         mesh=mesh,
         in_specs=(P("d", None), P("d"), P("d")),
         out_specs=P(),
-        check_vma=False,  # pallas_call out_shapes carry no vma annotation
     )
     return jax.jit(fn)
 
@@ -105,7 +87,6 @@ def _bbox_count_packed_fn(mesh: Mesh, widths: tuple, block_size: int):
         mesh=mesh,
         in_specs=(P("d", None),) * 5 + (P("d"),),
         out_specs=P(),
-        check_vma=False,
     )
     return jax.jit(fn)
 
@@ -122,12 +103,9 @@ def sharded_bbox_count_packed(mesh: Mesh, xp, yp, zp, los, his, nvalids,
 
 
 @functools.lru_cache(maxsize=8)
-def _class_count_packed_fn(mesh: Mesh, impl: str):
+def _class_count_packed_fn(mesh: Mesh):
     def per_device(words, target, nv):
-        if impl == "pallas":
-            counts = predicate.class_count_packed_pallas_multi(words, target, nv)
-        else:
-            counts = predicate.class_count_packed_jnp_multi(words, target, nv)
+        counts = predicate.class_count_packed_jnp_multi(words, target, nv)
         return jax.lax.psum(jnp.sum(counts, dtype=jnp.int32), "d")
 
     fn = shard_map(
@@ -135,7 +113,6 @@ def _class_count_packed_fn(mesh: Mesh, impl: str):
         mesh=mesh,
         in_specs=(P("d", None), P("d"), P("d")),
         out_specs=P(),
-        check_vma=False,
     )
     return jax.jit(fn)
 
@@ -151,7 +128,6 @@ def _time_count_fn(mesh: Mesh):
         mesh=mesh,
         in_specs=(P("d", None), P("d", None), P("d", None), P("d")),
         out_specs=P(),
-        check_vma=False,
     )
     return jax.jit(fn)
 
@@ -175,7 +151,6 @@ def _time_count_packed_fn(mesh: Mesh, widths: tuple, block_size: int):
         mesh=mesh,
         in_specs=(P("d", None), P("d", None), P("d", None), P("d")),
         out_specs=P(),
-        check_vma=False,
     )
     return jax.jit(fn)
 
@@ -203,7 +178,6 @@ def _class_count_dict_fn(mesh: Mesh, k: int, block_size: int):
         mesh=mesh,
         in_specs=(P("d", None), P("d"), P("d")),
         out_specs=P(),
-        check_vma=False,
     )
     return jax.jit(fn)
 
@@ -286,7 +260,6 @@ def _collect_fn(mesh: Mesh, kind: str, cap: int, extra: tuple = ()):
         mesh=mesh,
         in_specs=in_specs,
         out_specs=(P("d"), P("d", None)),
-        check_vma=False,
     )
     return jax.jit(fn)
 
@@ -345,7 +318,6 @@ def _density_fn(mesh: Mesh, kind: str, cap: int):
         mesh=mesh,
         in_specs=in_specs,
         out_specs=(P("d"), P("d", None)),
-        check_vma=False,
     )
     return jax.jit(fn)
 
@@ -398,7 +370,6 @@ def _density_packed_fn(mesh: Mesh, kind: str, cap: int,
         mesh=mesh,
         in_specs=in_specs,
         out_specs=(P("d"), P("d", None)),
-        check_vma=False,
     )
     return jax.jit(fn)
 
@@ -413,39 +384,20 @@ def sharded_density_packed(mesh: Mesh, kind: str, arrays: tuple, tables: dict,
     )
 
 
-def sharded_bbox_count(mesh: Mesh, xs, ys, zs, los, his, nvalids, impl: str = "auto"):
+def sharded_bbox_count(mesh: Mesh, xs, ys, zs, los, his, nvalids):
     """Count bbox hits across D*K blocks, K per device per dispatch. All
     args stacked on axis 0 with leading dim a multiple of the mesh size.
     Returns a replicated int32 total (sum over this step's blocks only, so
-    it cannot overflow: K*B per chip stays far below 2^31)."""
-    if impl == "auto":
-        impl = _block_impl(xs)
-    return _bbox_count_fn(mesh, impl)(xs, ys, zs, los, his, nvalids)
+    it cannot overflow: K*B per device stays far below 2^31)."""
+    return _bbox_count_fn(mesh)(xs, ys, zs, los, his, nvalids)
 
 
-def sharded_class_count(mesh: Mesh, clss, targets, nvalids, impl: str = "auto"):
+def sharded_class_count(mesh: Mesh, clss, targets, nvalids):
     import numpy as np
 
     # 4x-packed path: view the host u8 column as int32 words (zero-copy) so
-    # the device tests 4 points per VPU lane — the unpacked scan is
-    # element-rate-bound, not byte-bound. Same bytes cross the link.
+    # the device tests 4 points per element. Same bytes cross the link.
     if isinstance(clss, np.ndarray) and clss.dtype == np.uint8 and clss.shape[-1] % 4 == 0:
         words = predicate.pack_class_words(clss)
-        if impl == "auto":
-            w = words.shape[-1]
-            on_tpu = jax.default_backend() == "tpu"
-            if on_tpu and w % predicate.MIN_BLOCK_MULTIPLE == 0:
-                impl = predicate.autotune_impl()
-            elif on_tpu and clss.shape[-1] % predicate.MIN_BLOCK_MULTIPLE == 0:
-                # words not tile-aligned but the u8 block is (block sizes of
-                # 256K-768K points): the unpacked pallas kernel beats the
-                # packed-jnp fallback there, so take that path instead
-                return _class_count_fn(mesh, predicate.autotune_impl())(
-                    clss, targets, nvalids
-                )
-            else:
-                impl = "jnp"
-        return _class_count_packed_fn(mesh, impl)(words, targets, nvalids)
-    if impl == "auto":
-        impl = _block_impl(clss)
-    return _class_count_fn(mesh, impl)(clss, targets, nvalids)
+        return _class_count_packed_fn(mesh)(words, targets, nvalids)
+    return _class_count_fn(mesh)(clss, targets, nvalids)

@@ -1,16 +1,18 @@
-"""HBM-resident datasets: repeated ad-hoc queries at memory bandwidth.
+"""Device-resident datasets: repeated ad-hoc queries at memory bandwidth.
 
 The paper's engine re-reads files from disk on every query (cold-cache is
-its headline protocol). A TPU changes the economics: once the SoA columns
-are resident in HBM (sharded over the chip mesh), every subsequent ad-hoc
-query is ONE device dispatch scanning at HBM bandwidth — no disk, no host,
-no decode. This is the interactive/serving story the reference cannot offer
+its headline protocol). An accelerator changes the economics: once the SoA
+columns are resident in device memory (sharded over the device mesh), every
+subsequent ad-hoc query is ONE device dispatch scanning at memory bandwidth
+— no disk, no host, no decode. This is the interactive/serving story the reference cannot offer
 and the main reason to run this workload on accelerators at all.
 
-Sizing guide (v5e: 16 GiB HBM/chip): positions are 12 B/point, so ~1.3 B
-points/chip fully resident; classification-only residency is 1 B/point
-(~16 B points/chip) — the paper's entire ca13 (2.6 B points) fits
-class-resident on a single chip, or fully resident on a v5e-4 mesh.
+Sizing guide (80 GB card, of which a JAX process takes 75% = 60 GB by
+default): positions are 12 B/point, classification 1 B/point and GPS time
+8 B/point (the (hi, lo) int32 pair), 21 B/point in all. So ~5 B points fit
+position-resident on one card and ~2.8 B with all three columns, before
+query working space — the paper's ca13 (2.6 B points) fits
+position-resident on one card (31 GB), and fully resident on four.
 
 Counts are returned per block (int32, block <= 2^21 points) and summed on
 the host in Python ints, so multi-billion-hit queries (ca13-XL ~2.6 B) never
@@ -32,10 +34,7 @@ from ..models.query import QueryPlan
 from ..utils.aabb import clamp_bounds_to_i32, local_query_bounds
 from . import mesh as mesh_mod
 
-try:
-    from jax import shard_map
-except ImportError:  # older jax
-    from jax.experimental.shard_map import shard_map
+from jax import shard_map
 
 
 def _stack_sharded(mesh: Mesh, arr: np.ndarray) -> jax.Array:
@@ -73,7 +72,7 @@ class ResidentDataset:
         block_size: int = 1 << 21,
         workers: int = 8,
     ) -> "ResidentDataset":
-        from ..engine import discover_files
+        from ..engine import clamp_block_size, discover_files
         from ..ops import predicate
 
         files = discover_files(input_path)
@@ -82,10 +81,7 @@ class ResidentDataset:
         mesh = mesh or mesh_mod.make_mesh()
         d = mesh.devices.size
         readers = [open_point_cloud(f) for f in files]
-        max_pts = max(r.point_count for r in readers)
-        if max_pts < block_size:
-            q = predicate.MIN_BLOCK_MULTIPLE if jax.default_backend() == "tpu" else 8192
-            block_size = min(block_size, ((max_pts + q - 1) // q) * q)
+        block_size = clamp_block_size(block_size, max(r.point_count for r in readers))
 
         tasks = []
         for i, r in enumerate(readers):
@@ -187,7 +183,6 @@ class ResidentDataset:
                     P("d", None), P("d", None), P("d"),
                 ),
                 out_specs=P("d"),
-                check_vma=False,
             )
         )
 
@@ -205,7 +200,6 @@ class ResidentDataset:
                 mesh=mesh,
                 in_specs=(P("d", None), P(), P("d")),
                 out_specs=P("d"),
-                check_vma=False,
             )
         )
 
@@ -225,7 +219,6 @@ class ResidentDataset:
                 mesh=mesh,
                 in_specs=(P("d", None), P("d", None), P(), P("d")),
                 out_specs=P("d"),
-                check_vma=False,
             )
         )
 

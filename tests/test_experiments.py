@@ -16,18 +16,16 @@ from adhoc_queries_pointclouds_tpu.models.query import BoundsQuery, QueryPlan
 
 def test_stats_row_format():
     row = experiments._stats_row("x_y_z", [1.0, 2.0, 3.0], 42)
-    name, mean, median, stddev, count, nruns, ncapped = row.split(";")
+    name, mean, median, stddev, count, nruns = row.split(";")
     assert name == "x_y_z"
     assert float(mean) == 2.0
     assert float(median) == 2.0
     assert float(stddev) == 1.0
     assert int(count) == 42
     assert int(nruns) == 3
-    assert int(ncapped) == 0
     # count column stays parseable when the CLI output had no count line
     assert experiments._stats_row("a", [1.0], None).split(";")[4] == ""
-    # timeout-capped runs are flagged in the row itself (self-auditing CSV)
-    assert experiments._stats_row("a", [1.0, 9.0], None, ncapped=1).endswith(";2;1")
+    assert experiments._stats_row("a", [1.0, 9.0], None).endswith(";2")
 
 
 def test_published_constants_present():
@@ -56,7 +54,7 @@ def test_synthesize_layout(tmp_path):
 def test_one_subprocess_cell(tmp_path):
     """Run one real harness cell end-to-end (warm cache, las only, size s)."""
     experiments.synthesize_dataset(tmp_path, "navvis3", n_files=1, points_per_file=3_000)
-    env = dict(os.environ, AQPC_FORCE_CPU="1")
+    env = dict(os.environ)
     proc = subprocess.run(
         [sys.executable, "-m", "adhoc_queries_pointclouds_tpu.cli", "experiments",
          "-i", str(tmp_path), "-e", "1", "--runs", "1", "--warm",

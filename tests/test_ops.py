@@ -1,5 +1,5 @@
-"""Device-op tests: predicate kernels (jnp + pallas-interpret), compaction,
-density segment-min — each against a NumPy oracle."""
+"""Device-op tests: predicate scans, compaction, density segment-min — each
+against a NumPy oracle."""
 
 import jax
 import jax.numpy as jnp
@@ -15,7 +15,6 @@ from adhoc_queries_pointclouds_tpu.ops import (
     merge_winners_host,
 )
 from adhoc_queries_pointclouds_tpu.ops.predicate import (
-    MIN_BLOCK_MULTIPLE,
     bbox_count_jnp,
     bbox_mask_jnp,
     class_count_jnp,
@@ -49,7 +48,7 @@ class TestPredicates:
             )
         )
         got = int(bbox_count(jnp.asarray(x), jnp.asarray(y), jnp.asarray(z),
-                             jnp.asarray(lo), jnp.asarray(hi), n, impl="jnp"))
+                             jnp.asarray(lo), jnp.asarray(hi), n))
         assert got == oracle
 
     def test_bbox_count_respects_n_valid(self):
@@ -59,37 +58,53 @@ class TestPredicates:
         hi = np.full(3, 2**31 - 1, np.int32)
         # full int32 box matches everything valid — padding must not count
         got = int(bbox_count(jnp.asarray(x), jnp.asarray(y), jnp.asarray(z),
-                             jnp.asarray(lo), jnp.asarray(hi), n, impl="jnp"))
+                             jnp.asarray(lo), jnp.asarray(hi), n))
         assert got == n
-
-    def test_bbox_pallas_interpret_matches_jnp(self):
-        n = MIN_BLOCK_MULTIPLE  # one tile
-        x, y, z = _random_block(n - 321, seed=3, pad_to=n)
-        lo = np.array([-(2**29), 0, -(2**30)], np.int32)
-        hi = np.array([2**29, 2**30 - 1, 0], np.int32)
-        args = (jnp.asarray(x), jnp.asarray(y), jnp.asarray(z),
-                jnp.asarray(lo), jnp.asarray(hi), n - 321)
-        ref = int(bbox_count(*args, impl="jnp"))
-        got = int(bbox_count(*args, impl="pallas_interpret"))
-        assert got == ref
 
     def test_class_count_vs_oracle(self):
         rng = np.random.default_rng(4)
         cls = rng.integers(0, 8, 50_000, dtype=np.int64).astype(np.uint8)
-        got = int(class_count(jnp.asarray(cls), jnp.asarray(3), len(cls), impl="jnp"))
+        got = int(class_count(jnp.asarray(cls), jnp.asarray(3), len(cls)))
         assert got == int(np.sum(cls == 3))
         # class 19 never present (paper's "noclass" experiment)
-        got19 = int(class_count(jnp.asarray(cls), jnp.asarray(19), len(cls), impl="jnp"))
+        got19 = int(class_count(jnp.asarray(cls), jnp.asarray(19), len(cls)))
         assert got19 == 0
 
-    def test_class_pallas_interpret_matches_jnp(self):
-        n = MIN_BLOCK_MULTIPLE
-        rng = np.random.default_rng(5)
-        cls = rng.integers(0, 8, n, dtype=np.int64).astype(np.uint8)
-        nv = n - 4567
-        ref = int(class_count(jnp.asarray(cls), jnp.asarray(6), nv, impl="jnp"))
-        got = int(class_count(jnp.asarray(cls), jnp.asarray(6), nv, impl="pallas_interpret"))
-        assert got == ref
+    # Block sizes that are no multiple of any tile, down to a 1-point block.
+    # "full" is the whole int32 box, which only the n_valid mask can bound.
+    @pytest.mark.parametrize("n_valid,block", [(1, 4), (1003, 1004), (8191, 8196), (65_537, 65_540)])
+    @pytest.mark.parametrize("kind", ["bbox", "bbox_full", "class", "class_packed"])
+    def test_counts_vs_numpy_at_odd_block_sizes(self, kind, n_valid, block):
+        from adhoc_queries_pointclouds_tpu.ops import predicate as P
+
+        rng = np.random.default_rng(n_valid)
+        if kind.startswith("bbox"):
+            x, y, z = _random_block(n_valid, seed=n_valid, pad_to=block)
+            if kind == "bbox_full":
+                lo = np.full(3, -(2**31), np.int32)
+                hi = np.full(3, 2**31 - 1, np.int32)
+            else:
+                lo = np.array([-(2**29), -(2**30), -(2**31)], np.int32)
+                hi = np.array([2**30, 2**29, 0], np.int32)
+            v = slice(0, n_valid)
+            oracle = int(np.sum(
+                (x[v] >= lo[0]) & (x[v] <= hi[0]) & (y[v] >= lo[1]) & (y[v] <= hi[1])
+                & (z[v] >= lo[2]) & (z[v] <= hi[2])
+            ))
+            got = int(bbox_count(jnp.asarray(x), jnp.asarray(y), jnp.asarray(z),
+                                 jnp.asarray(lo), jnp.asarray(hi), n_valid))
+        else:
+            # padding holds the target class: only the n_valid mask excludes it
+            cls = np.full(block, 6, np.uint8)
+            cls[:n_valid] = rng.integers(0, 8, n_valid).astype(np.uint8)
+            oracle = int(np.sum(cls[:n_valid] == 6))
+            if kind == "class":
+                got = int(class_count(jnp.asarray(cls), 6, n_valid))
+            else:
+                got = int(P.class_count_packed_jnp(
+                    jnp.asarray(P.pack_class_words(cls)), jnp.asarray(6),
+                    jnp.asarray(n_valid, jnp.int32)))
+        assert got == oracle
 
 
 class TestCompaction:
@@ -154,11 +169,13 @@ class TestDensity:
 
     @staticmethod
     def _run(raw, scale, offset, bounds, cell, mask=None, base=0, state=None,
-             file_idx=0, cap=None):
-        from adhoc_queries_pointclouds_tpu.ops.density import (
-            GridSpec3D, block_density_candidates, merge_winners_host,
-        )
+             file_idx=0, cap=None, device=None):
+        from adhoc_queries_pointclouds_tpu.ops.density import GridSpec3D
 
+        if device is not None:
+            with jax.default_device(device):
+                return TestDensity._run(raw, scale, offset, bounds, cell, mask,
+                                        base, state, file_idx, cap)
         grid = GridSpec3D.create(bounds, cell)
         tables = {
             k: jnp.asarray(v) for k, v in grid.file_tables(scale, offset).items()
@@ -216,6 +233,13 @@ class TestDensity:
         assert sorted(state["gidx"].tolist()) == sorted(v[1] for v in oracle.values())
 
     def test_boundary_epsilon_points_exact(self):
+        self._check_boundary_epsilon_points(None)
+
+    @pytest.mark.gpu
+    def test_boundary_epsilon_points_exact_on_gpu(self, gpu_device):
+        self._check_boundary_epsilon_points(gpu_device)
+
+    def _check_boundary_epsilon_points(self, device):
         """Points at the closest representable coordinates around every cell
         boundary (and exactly ON f64-exact boundaries) must land in the
         reference's f64 cell — no tolerance. This is where a pure-f32 kernel
@@ -238,7 +262,7 @@ class TestDensity:
                     p[ax] = v
                     pts.append(p)
         raw = np.asarray(pts, np.int32)
-        state, _ = self._run(raw, scale, offset, bounds, cell)
+        state, _ = self._run(raw, scale, offset, bounds, cell, device=device)
         world = raw.astype(np.float64) * scale + np.asarray(offset)
         oracle = self._oracle(world, bounds, cell)
         assert sorted(state["gidx"].tolist()) == sorted(v[1] for v in oracle.values())
@@ -274,8 +298,16 @@ class TestDensity:
         assert len(state) == 1
 
     def test_near_tie_d2_resolved_in_f64(self):
+        self._check_near_tie_d2(None)
+
+    @pytest.mark.gpu
+    def test_near_tie_d2_resolved_in_f64_on_gpu(self, gpu_device):
+        self._check_near_tie_d2(gpu_device)
+
+    def _check_near_tie_d2(self, device):
         """Two points whose d2 differ by ~1e-12 relative: f32 cannot order
-        them; the candidate margin must pass both to the exact host merge."""
+        them; the candidate margin must pass both to the exact host merge
+        (also where the GPU contracts the d2 sum into FMAs)."""
         bounds = AABB((0.0, 0.0, 0.0), (10.0, 10.0, 10.0))
         scale = (1e-7, 1e-7, 1e-7)
         # cell 0 center at (0.5, 0.5, 0.5) = raw 5e6; two opposite offsets
@@ -283,7 +315,7 @@ class TestDensity:
         raw = np.array(
             [[c + 1000, c, c], [c - 1001, c, c], [c, c + 1000, c]], np.int32
         )
-        state, _ = self._run(raw, scale, (0.0,) * 3, bounds, 1.0)
+        state, _ = self._run(raw, scale, (0.0,) * 3, bounds, 1.0, device=device)
         world = raw.astype(np.float64) * np.asarray(scale)
         oracle = self._oracle(world, bounds, 1.0)
         assert sorted(state["gidx"].tolist()) == sorted(v[1] for v in oracle.values())
@@ -477,31 +509,6 @@ class TestMultiBlock:
                 jnp.asarray(los[k]), jnp.asarray(his[k]), jnp.asarray(nvs[k])))
             assert multi[k] == single
 
-    def test_bbox_multi_pallas_interpret(self):
-        import jax
-        import jax.numpy as jnp
-        from jax.experimental import pallas as pl  # noqa: F401
-        from adhoc_queries_pointclouds_tpu.ops import predicate as P
-
-        rng = np.random.default_rng(9)
-        K, B = 2, P.MIN_BLOCK_MULTIPLE
-        xs = rng.integers(-2**30, 2**30, (K, B)).astype(np.int32)
-        los = np.tile(np.array([-2**29, 0, -2**28], np.int32), (K, 1))
-        his = np.tile(np.array([2**29, 2**28, 2**27], np.int32), (K, 1))
-        nvs = np.array([B, B - 777], np.int32)
-        ref = np.asarray(P.bbox_count_jnp_multi(
-            jnp.asarray(xs), jnp.asarray(xs), jnp.asarray(xs),
-            jnp.asarray(los), jnp.asarray(his), jnp.asarray(nvs)))
-        # interpret-mode pallas multi kernel
-        import functools
-        with jax.disable_jit(False):
-            from jax.experimental.pallas import tpu as pltpu
-            with pltpu.force_tpu_interpret_mode():
-                got = np.asarray(P.bbox_count_pallas_multi(
-                    jnp.asarray(xs), jnp.asarray(xs), jnp.asarray(xs),
-                    jnp.asarray(los), jnp.asarray(his), jnp.asarray(nvs)))
-        np.testing.assert_array_equal(got, ref)
-
     def test_class_multi_vs_oracle(self):
         from adhoc_queries_pointclouds_tpu.ops.predicate import class_count_jnp_multi
         import jax.numpy as jnp
@@ -629,31 +636,6 @@ class TestPackedClassKernels:
             jnp.asarray(P.pack_class_words(cls)), jnp.asarray(targets),
             jnp.asarray(nvs)))
         np.testing.assert_array_equal(got, ref)
-
-    def test_packed_pallas_interpret(self):
-        import jax.numpy as jnp
-        from jax.experimental.pallas import tpu as pltpu
-        from adhoc_queries_pointclouds_tpu.ops import predicate as P
-
-        rng = np.random.default_rng(43)
-        K = 2
-        B = 4 * P.MIN_BLOCK_MULTIPLE  # one word-tile per block
-        cls = rng.integers(0, 256, (K, B)).astype(np.uint8)
-        targets = np.array([6, 0], np.int32)
-        nvs = np.array([B, B - 999], np.int32)
-        words = P.pack_class_words(cls)
-        ref = np.asarray(P.class_count_packed_jnp_multi(
-            jnp.asarray(words), jnp.asarray(targets), jnp.asarray(nvs)))
-        with pltpu.force_tpu_interpret_mode():
-            got = np.asarray(P.class_count_packed_pallas_multi(
-                jnp.asarray(words), jnp.asarray(targets), jnp.asarray(nvs)))
-            single = int(P.class_count_packed_pallas(
-                jnp.asarray(words[0]), jnp.asarray(6),
-                jnp.asarray(nvs[0], jnp.int32)))
-        np.testing.assert_array_equal(got, ref)
-        assert single == ref[0]
-        for k in range(K):
-            assert ref[k] == int(np.sum(cls[k, : nvs[k]] == targets[k]))
 
     def test_sharded_class_count_packs(self, monkeypatch):
         import jax.numpy as jnp

@@ -71,7 +71,7 @@ def test_handle_requests(ds_dir):
 
 def test_serve_subprocess_protocol(ds_dir):
     path, _ = ds_dir
-    env = dict(os.environ, AQPC_FORCE_CPU="1")
+    env = dict(os.environ)
     requests = "\n".join([
         json.dumps({"cmd": "info"}),
         json.dumps({"bounds": [100200.0, 200300.0, 10.0, 100900.0, 200900.0, 70.0]}),

@@ -1,5 +1,5 @@
 """Render the experiment-grid CSVs (tools-run output in /tmp/expruns) as the
-markdown tables committed to docs/SAMPLE_RESULTS.md.
+markdown tables.
 
 Input rows are the reference CSV shape plus the audit columns
 (name;mean;median;stddev;count[;nruns;ncapped] — experiments.py:_stats_row;
@@ -103,7 +103,7 @@ def parity(rows: dict[str, tuple[float, float, float, str]]) -> str:
 
 def compare_backends(a_paths: list[str], b_paths: list[str]) -> str:
     """Counts must agree row-for-row between two table sets (e.g. the CPU
-    cold grid and the TPU in-process grid) wherever both measured a cell."""
+    cold grid and the in-process grid) wherever both measured a cell."""
     a, b = load(a_paths), load(b_paths)
     common = sorted(set(a) & set(b))
     bad = [n for n in common if a[n][3] != b[n][3] and a[n][3] and b[n][3]]

@@ -11,8 +11,8 @@ and asserts:
   - full bbox cells also match an independent NumPy f64 oracle
   - density cells match the exact reference-math key oracle
 
-Usage: python tools/soak.py [--points-per-file N] [--files K] [--tpu]
-(defaults run on CPU; --tpu uses whatever jax.default_backend() is)
+Usage: python tools/soak.py [--points-per-file N] [--files K]
+(runs on JAX's default backend; JAX_PLATFORMS=cpu pins the CPU)
 """
 
 from __future__ import annotations
@@ -30,15 +30,8 @@ def main() -> int:
     parser = argparse.ArgumentParser()
     parser.add_argument("--points-per-file", type=int, default=300_000)
     parser.add_argument("--files", type=int, default=3)
-    parser.add_argument("--tpu", action="store_true",
-                        help="run on the default backend instead of forcing CPU")
     parser.add_argument("--block-size", type=int, default=65_536)
     args = parser.parse_args()
-
-    if not args.tpu:
-        import jax
-
-        jax.config.update("jax_platforms", "cpu")
 
     import numpy as np
 
